@@ -1,58 +1,63 @@
-"""haskell_path_tracer_tpu — a TPU-native differentiable path tracer.
+"""Former import name of `haskell_path_tracer`, kept as an alias for one
+release.  New code imports `haskell_path_tracer`.
 
-A from-scratch JAX / XLA / Pallas reimagining of the capabilities of
-`robbert-vdh/haskell-path-tracer` (surveyed in /root/repo/SURVEY.md): a
-progressive Monte-Carlo path tracer with
-
-  * an inline megakernel integrator (fused `lax.fori_loop` bounce loop) and
-    a wavefront integrator (fixed-capacity ray queues with stream
-    per-lane split stacks) — the reference's `Inline` / `Streams` algorithm pair;
-  * per-pixel SFC32 RNG threading with periodic reseeding;
-  * progressive accumulation with camera-motion invalidation;
-  * differentiable rendering (gradients w.r.t. material / emission /
-    geometry parameters) for inverse rendering;
-  * SPMD sharding of image tiles and sample batches over a TPU device mesh.
+Importing this package returns `haskell_path_tracer` itself, and every
+submodule imported through this name is the very module object of
+`haskell_path_tracer` (no second copy of any module or class), so
+``python -m <this name>.app.main`` runs the CLI as before.
 """
 
-from .models.objects import (
-    Accumulator,
-    Boxes,
-    Camera,
-    Materials,
-    Planes,
-    Rays,
-    Scene,
-    Spheres,
-    Triangles,
-    BRDF_MATTE,
-    BRDF_GLOSSY,
-    BRDF_DIELECTRIC,
-    make_boxes,
-    make_materials,
-    make_planes,
-    make_spheres,
-    make_triangles,
-)
-from .models.world import initial_camera, main_scene
-from .models.io import load_scene, save_scene
-from .models.camera import primary_rays
-from .render.integrator import (
-    make_accumulator,
-    render_batch_inline,
-    render_sample_inline,
-    trace_inline,
-)
-from .render.wavefront import (
-    WavefrontStats,
-    depth_histogram,
-    render_batch_split_auto,
-    render_batch_wavefront,
-    render_batch_wavefront_split,
-    render_sample_wavefront,
-    render_sample_wavefront_split,
-)
-from .render.nee import render_batch_physical, render_sample_physical
-from .render.renderer import Renderer
-from .utils.config import RenderConfig
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-__version__ = "0.2.0"
+import haskell_path_tracer as _target
+
+_PREFIX = __name__ + "."
+
+
+def _target_name(name):
+    return _target.__name__ + name[len(__name__):]
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves `<this name>.X` to the module `haskell_path_tracer.X`."""
+
+    def __init__(self):
+        self._specs = {}
+
+    def find_spec(self, name, path=None, target=None):
+        if not name.startswith(_PREFIX):
+            return None
+        real = importlib.util.find_spec(_target_name(name))
+        if real is None:
+            return None
+        return importlib.util.spec_from_loader(
+            name, self, is_package=real.submodule_search_locations is not None
+        )
+
+    def create_module(self, spec):
+        module = importlib.import_module(_target_name(spec.name))
+        self._specs[module.__name__] = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # `create_module` returned the real, already executed module; undo
+        # the import system's rebinding of its `__spec__` to the alias.
+        module.__spec__ = self._specs.pop(module.__name__)
+
+    def get_code(self, name):
+        """For ``python -m``: the code of the real module."""
+        real = importlib.util.find_spec(_target_name(name))
+        return real.loader.get_code(real.name)
+
+
+warnings.warn(
+    f"{__name__} is now called {_target.__name__}; import that instead",
+    DeprecationWarning,
+    stacklevel=2,
+)
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[__name__] = _target

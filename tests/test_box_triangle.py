@@ -1,5 +1,5 @@
 """Axis-aligned box and triangle primitives — the reference's declared
-TODOs (Objects.hs:47-59) implemented TPU-natively.
+TODOs (Objects.hs:47-59) implemented array-natively.
 
 Property style follows the reference's intersection contract
 (test/Scene/Intersection/Tests.hs): analytic distances, one-sided
@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from haskell_path_tracer_tpu.models.objects import (
+from haskell_path_tracer.models.objects import (
     BRDF_MATTE,
     Scene,
     make_boxes,
@@ -22,7 +22,7 @@ from haskell_path_tracer_tpu.models.objects import (
     make_spheres,
     make_triangles,
 )
-from haskell_path_tracer_tpu.ops.intersect import (
+from haskell_path_tracer.ops.intersect import (
     INFINITE,
     box_distances,
     box_normal,
@@ -217,7 +217,7 @@ def test_nearest_hit_box_when_triangle_removed():
 def test_chunked_path_matches_small_path_with_extended_kinds():
     """Force the chunked scan (>128 prims) and cross-check against the
     direct formulation on a mixed-kind scene."""
-    from haskell_path_tracer_tpu.ops import intersect as I
+    from haskell_path_tracer.ops import intersect as I
 
     rng = np.random.default_rng(5)
     n = 150
@@ -251,12 +251,12 @@ def test_chunked_path_matches_small_path_with_extended_kinds():
 def test_integrators_render_extended_scene():
     """Inline and wavefront agree bit-for-bit on a scene containing all
     four primitive kinds (the wavefront≡inline contract extends)."""
-    from haskell_path_tracer_tpu.models.objects import Camera
-    from haskell_path_tracer_tpu.render.integrator import (
+    from haskell_path_tracer.models.objects import Camera
+    from haskell_path_tracer.render.integrator import (
         make_accumulator,
         render_batch_inline,
     )
-    from haskell_path_tracer_tpu.render.wavefront import (
+    from haskell_path_tracer.render.wavefront import (
         render_sample_wavefront,
     )
 
@@ -275,7 +275,7 @@ def test_integrators_render_extended_scene():
 
 
 def test_scene_json_roundtrip_with_boxes_triangles(tmp_path):
-    from haskell_path_tracer_tpu.models.io import load_scene, save_scene
+    from haskell_path_tracer.models.io import load_scene, save_scene
 
     scene = full_scene()
     path = str(tmp_path / "scene.json")

@@ -2,21 +2,22 @@
 formulation: same distances, same winning primitive (first-wins
 tie-break), same payload — and gradients still flow.
 
-The chunked path bounds the [rays, prims] intermediate that OOMed HBM at
+The chunked path bounds the [rays, prims] intermediate that runs out of device memory at
 1920x1088 x 1000 spheres (BASELINE.md config #4)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from haskell_path_tracer_tpu.models.objects import (
+from haskell_path_tracer.models.objects import (
     BRDF_MATTE,
     Scene,
     make_materials,
     make_planes,
     make_spheres,
 )
-from haskell_path_tracer_tpu.ops import intersect as I
+from haskell_path_tracer.ops import intersect as I
 
 
 def random_scene(n_spheres, seed=0):
@@ -126,3 +127,42 @@ def test_chunked_gradients_flow():
     g = jax.grad(f)(scene.spheres.pos)
     assert np.isfinite(np.asarray(g)).all()
     assert np.abs(np.asarray(g)).max() > 0
+
+
+def _all_kinds_scene(num_prims):
+    """Spheres plus two planes, a box and a triangle, `num_prims` in all."""
+    import dataclasses
+
+    from haskell_path_tracer.models.objects import make_boxes, make_triangles
+
+    base = random_scene(num_prims - 4, seed=3)
+    mat = make_materials([([0.6, 0.3, 0.2], 1.0, BRDF_MATTE, 1.0)])
+    return dataclasses.replace(
+        base,
+        boxes=make_boxes([[-1.0, -1.0, -8.0]], [[1.0, 1.0, -6.0]], mat),
+        triangles=make_triangles(
+            [[-4.0, -2.0, -5.0]], [[4.0, -2.0, -5.0]], [[0.0, 4.0, -5.0]],
+            mat,
+        ),
+    )
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_chunked_matches_direct_at_threshold(offset):
+    """At CHUNKED_THRESHOLD - 1, +0 and +1 primitives, with every kind
+    merged after the sphere chunks: the chunked fold and the direct fold
+    resolve the same hits, and both payload forms (row gather and one-hot
+    matmul) give the same hit record."""
+    scene = _all_kinds_scene(I.CHUNKED_THRESHOLD + offset)
+    assert scene.num_primitives == I.CHUNKED_THRESHOLD + offset
+    o, d = random_rays(1024, seed=5)
+    _assert_same_resolution(scene, o, d)
+    t, prim = I._nearest_t_prim_small(o, d, scene)
+    gather = I.hit_from_t_prim(o, d, t, prim, scene, use_gather=True)
+    onehot = I.hit_from_t_prim(o, d, t, prim, scene, use_gather=False)
+    for field in ("hit", "point", "normal", "color", "illuminance"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(gather, field)),
+            np.asarray(getattr(onehot, field)), rtol=1e-6, atol=1e-6,
+            err_msg=field,
+        )

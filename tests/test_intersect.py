@@ -10,14 +10,14 @@ import numpy as np
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
-from haskell_path_tracer_tpu.models.objects import (
+from haskell_path_tracer.models.objects import (
     BRDF_MATTE,
     Scene,
     make_materials,
     make_planes,
     make_spheres,
 )
-from haskell_path_tracer_tpu.ops.intersect import (
+from haskell_path_tracer.ops.intersect import (
     INFINITE,
     nearest_hit,
     plane_distances,

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
-from haskell_path_tracer_tpu.core import linalg
+from haskell_path_tracer.core import linalg
 
 finite = dict(allow_nan=False, allow_infinity=False, width=32)
 angles_st = st.tuples(

@@ -15,7 +15,7 @@ import zlib
 import numpy as np
 import pytest
 
-from haskell_path_tracer_tpu.runtime import native
+from haskell_path_tracer.runtime import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason=f"native build unavailable: {native.load_error()}"
@@ -31,7 +31,7 @@ def _states(n, seed=3):
 
 
 def test_sfc32_advance_bit_exact():
-    from haskell_path_tracer_tpu.ops.rng import np_sfc32_next
+    from haskell_path_tracer.ops.rng import np_sfc32_next
 
     st = _states(128)
     ref = st.copy()
@@ -42,7 +42,7 @@ def test_sfc32_advance_bit_exact():
 
 
 def test_sfc32_uniforms_bit_exact_vs_jax_and_numpy():
-    from haskell_path_tracer_tpu.ops import rng as R
+    from haskell_path_tracer.ops import rng as R
     import jax.numpy as jnp
 
     st = _states(64)
@@ -60,7 +60,7 @@ def test_sfc32_uniforms_bit_exact_vs_jax_and_numpy():
 
 
 def test_native_tonemap_matches_python():
-    from haskell_path_tracer_tpu.utils.image import tonemap
+    from haskell_path_tracer.utils.image import tonemap
 
     img = np.random.default_rng(0).uniform(0, 20, (17, 9, 3)).astype(np.float32)
     a = native.tonemap_rgb8(img, exposure=0.7, gamma=2.2)
@@ -85,8 +85,8 @@ def test_native_png_decodes(tmp_path):
 
 
 def _parity_setup(w=32, h=24):
-    from haskell_path_tracer_tpu.models import world
-    from haskell_path_tracer_tpu.ops.rng import gen_seeds
+    from haskell_path_tracer.models import world
+    from haskell_path_tracer.ops.rng import gen_seeds
 
     scene = world.main_scene()
     camera = world.initial_camera()
@@ -106,7 +106,7 @@ def test_cpp_oracle_matches_numpy_oracle():
     RNG streams are bit-exact, so bounce decisions agree except where a
     transcendental-ulp difference flips a boundary test; tolerate <0.5%
     divergent lanes (the same budget test_pallas.py uses)."""
-    from haskell_path_tracer_tpu.parity.oracle_np import render_sample_np
+    from haskell_path_tracer.parity.oracle_np import render_sample_np
 
     scene, camera, color, rng = _parity_setup()
     c_cpp, r_cpp = native.render_inline(
@@ -126,8 +126,8 @@ def test_cpp_oracle_matches_jax_renderer():
     """The flagship cross-check: JAX megakernel vs native C++ oracle."""
     import jax
 
-    from haskell_path_tracer_tpu.models.objects import Accumulator
-    from haskell_path_tracer_tpu.render.integrator import render_batch_inline
+    from haskell_path_tracer.models.objects import Accumulator
+    from haskell_path_tracer.render.integrator import render_batch_inline
 
     scene, camera, color, rng = _parity_setup()
     import jax.numpy as jnp
@@ -165,7 +165,7 @@ def test_cpp_oracle_threads_deterministic():
 
 
 def test_save_render_uses_native(tmp_path):
-    from haskell_path_tracer_tpu.utils.image import save_render
+    from haskell_path_tracer.utils.image import save_render
 
     img = np.random.default_rng(2).uniform(0, 4, (6, 8, 3)).astype(np.float32)
     path = save_render(str(tmp_path / "x.png"), img)
@@ -176,19 +176,16 @@ def test_save_render_uses_native(tmp_path):
 def test_native_nee_oracle_matches_xla_estimator():
     """Round 5: the scalar C++ NEE oracle (ptru_trace_physical_nee) —
     the THIRD independent implementation of the physical/NEE estimator
-    — matches render/nee.py:trace_physical(nee=True, fused=False)
+    — matches render/nee.py:trace_physical(nee=True)
     lane-for-lane with bit-equal RNG streams, on a triangle-area-light
     scene and a sphere Cornell scene."""
-    import sys
+    from nee_scenes import cornell8, tri_scene
 
-    sys.path.insert(0, __file__.rsplit("/", 1)[0])
-    from test_pallas_nee import cornell8, tri_scene
-
-    from haskell_path_tracer_tpu.models.camera import primary_rays
-    from haskell_path_tracer_tpu.models.objects import Camera
-    from haskell_path_tracer_tpu.ops.rng import gen_seeds
-    from haskell_path_tracer_tpu.render.nee import trace_physical
-    from haskell_path_tracer_tpu.runtime import native
+    from haskell_path_tracer.models.camera import primary_rays
+    from haskell_path_tracer.models.objects import Camera
+    from haskell_path_tracer.ops.rng import gen_seeds
+    from haskell_path_tracer.render.nee import trace_physical
+    from haskell_path_tracer.runtime import native
 
     if not native.available():
         pytest.skip(f"native runtime unavailable: {native.load_error()}")
@@ -198,7 +195,7 @@ def test_native_nee_oracle_matches_xla_estimator():
         rng = gen_seeds((H, W), seed=9)
         rays = primary_rays(cam, W, H)
         rad_x, rng_x = trace_physical(
-            scene, rays, rng, num_bounces=3, nee=True, fused=False
+            scene, rays, rng, num_bounces=3, nee=True
         )
         rad_c, rng_c = native.trace_physical_nee(
             scene, np.asarray(rays.origin), np.asarray(rays.direction),

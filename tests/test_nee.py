@@ -10,7 +10,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from haskell_path_tracer_tpu.models.objects import (
+from haskell_path_tracer.models.objects import (
     BRDF_GLOSSY,
     BRDF_MATTE,
     Camera,
@@ -19,8 +19,8 @@ from haskell_path_tracer_tpu.models.objects import (
     make_planes,
     make_spheres,
 )
-from haskell_path_tracer_tpu.render import nee as N
-from haskell_path_tracer_tpu.render.integrator import make_accumulator
+from haskell_path_tracer.render import nee as N
+from haskell_path_tracer.render.integrator import make_accumulator
 
 W, H = 20, 14
 
@@ -114,7 +114,7 @@ def test_light_cone_sampling_geometry():
         inv_pdf, 2 * np.pi * (1 - cos_max), rtol=5e-5
     )
     # Every sampled shadow ray actually hits the light sphere.
-    from haskell_path_tracer_tpu.ops.intersect import sphere_distances
+    from haskell_path_tracer.ops.intersect import sphere_distances
 
     t = np.asarray(sphere_distances(point, jnp.asarray(d), scene.spheres))
     assert (t[:, 0] < np.finfo(np.float32).max).mean() > 0.999
@@ -224,7 +224,7 @@ def test_stateless_threefry_matches_sfc32_mean():
     """The jax.random (threefry, counter-based) production path and the
     SFC32 state path estimate the same integral."""
     import jax.random as jr
-    from haskell_path_tracer_tpu.models.camera import primary_rays
+    from haskell_path_tracer.models.camera import primary_rays
 
     scene, camera = light_scene(light_radius=0.9), _camera()
     rays = primary_rays(camera, W, H)
@@ -243,60 +243,11 @@ def test_stateless_threefry_matches_sfc32_mean():
     assert corr > 0.97, corr
 
 
-def test_fused_dual_query_trace_matches_unfused():
-    """The dual-query Pallas bounce loop (one sphere fold per bounce) is
-    the same estimator as the two-fold `trace_physical(..., nee=True)`:
-    identical RNG draws and sampling decisions, intersection arithmetic
-    reorganized into the shade point's frame.  Per-pixel agreement up to
-    float drift (a reorganized accept test can flip a grazing lane)."""
-    from haskell_path_tracer_tpu.models.camera import primary_rays
-    from haskell_path_tracer_tpu.ops.rng import gen_seeds
-
-    rng = np.random.default_rng(7)
-    n = 40
-    pos = rng.uniform(-6, 6, (n, 3))
-    pos[:, 2] -= 6.0
-    illum = np.zeros(n)
-    illum[:3] = 50.0
-    s = make_spheres(
-        pos,
-        rng.uniform(0.4, 1.0, n),
-        make_materials(
-            [
-                ([0.8, 0.7, 0.6], float(illum[i]), BRDF_MATTE, 1.0)
-                for i in range(n)
-            ]
-        ),
-    )
-    p = make_planes(
-        [[0.0, -7.0, 0.0]],
-        [[0.0, 1.0, 0.0]],
-        make_materials([([0.6, 0.6, 0.6], 0.0, BRDF_MATTE, 1.0)]),
-    )
-    scene = Scene(spheres=s, planes=p)
-    camera = _camera()
-    rays = primary_rays(camera, W, H)
-    seeds = gen_seeds((H, W), seed=5)
-
-    img_u, rng_u = N.trace_physical(
-        scene, rays, seeds, num_bounces=4, nee=True, fused=False
-    )
-    img_f, rng_f = N._trace_physical_fused(
-        scene, rays, seeds, num_bounces=4, interpret=True
-    )
-    a, b = np.asarray(img_u), np.asarray(img_f)
-    close = np.isclose(a, b, rtol=1e-3, atol=1e-4).all(axis=-1)
-    assert close.mean() > 0.98, close.mean()
-    # RNG states advance identically wherever no discrete decision flipped.
-    rng_same = (np.asarray(rng_u) == np.asarray(rng_f)).all(axis=-1)
-    assert rng_same.mean() > 0.98, rng_same.mean()
-
-
 def _tri_light_scene(illum=25.0):
     """Cornell-ceiling configuration: the only light is an emissive
-    triangle overhead (VERDICT r1 weak item #6 — previously NEE silently
-    degraded to brute-force convergence here)."""
-    from haskell_path_tracer_tpu.models.objects import make_triangles
+    triangle overhead (NEE must not degrade to brute-force convergence
+    here)."""
+    from haskell_path_tracer.models.objects import make_triangles
 
     s = make_spheres(
         [[-0.8, -1.2, -4.5]],
@@ -369,10 +320,10 @@ def test_sphere_only_light_table_unchanged():
     (sample_light falls through to cone sampling, same draws)."""
     scene, camera = light_scene(), _camera()
     rays_shape = (H, W)
-    from haskell_path_tracer_tpu.ops.rng import gen_seeds
+    from haskell_path_tracer.ops.rng import gen_seeds
 
     seeds = gen_seeds(rays_shape, seed=12)
-    from haskell_path_tracer_tpu.models.camera import primary_rays
+    from haskell_path_tracer.models.camera import primary_rays
 
     rays = primary_rays(camera, W, H)
     img_a, rng_a = N.trace_physical(scene, rays, seeds, 3, nee=True)

@@ -10,9 +10,9 @@ pixels allclose, and the mean image tightly close.
 import numpy as np
 import jax.numpy as jnp
 
-from haskell_path_tracer_tpu.models import world
-from haskell_path_tracer_tpu.models.camera import primary_rays
-from haskell_path_tracer_tpu.models.objects import (
+from haskell_path_tracer.models import world
+from haskell_path_tracer.models.camera import primary_rays
+from haskell_path_tracer.models.objects import (
     BRDF_MATTE,
     Camera,
     Scene,
@@ -20,9 +20,9 @@ from haskell_path_tracer_tpu.models.objects import (
     make_planes,
     make_spheres,
 )
-from haskell_path_tracer_tpu.ops import rng as R
-from haskell_path_tracer_tpu.parity import oracle_np
-from haskell_path_tracer_tpu.render.integrator import (
+from haskell_path_tracer.ops import rng as R
+from haskell_path_tracer.parity import oracle_np
+from haskell_path_tracer.render.integrator import (
     make_accumulator,
     render_sample_inline,
 )

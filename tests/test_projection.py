@@ -10,7 +10,7 @@ infinite_perspective.
 import numpy as np
 import jax.numpy as jnp
 
-from haskell_path_tracer_tpu.core import projection as P
+from haskell_path_tracer.core import projection as P
 
 
 def _apply(m, v):

@@ -4,7 +4,7 @@ draw-order parity of gen_vec, and statistical sanity."""
 import numpy as np
 import jax.numpy as jnp
 
-from haskell_path_tracer_tpu.ops import rng as R
+from haskell_path_tracer.ops import rng as R
 
 
 def ref_sfc32_scalar(a, b, c, counter, n):
@@ -79,7 +79,7 @@ def test_uniformity():
 
 
 def test_reseed_keeps_color():
-    from haskell_path_tracer_tpu.render.integrator import make_accumulator
+    from haskell_path_tracer.render.integrator import make_accumulator
 
     acc = make_accumulator(8, 8, seed=1)
     acc2 = R.reseed((8, 8), acc, seed=99)
@@ -89,7 +89,7 @@ def test_reseed_keeps_color():
 
 def test_stateless_seeding_warmup_and_uniformity():
     """The stateless sampler's threefry-derived SFC32 states follow the
-    same discipline as gen_seeds (12 burn-in rounds; VERDICT r4 item 7),
+    same discipline as gen_seeds (12 burn-in rounds),
     and the first draws after warm-up are uniform: mean ~ 0.5 and each
     of 8 histogram octiles within 5 sigma of uniform over 64k draws."""
     import jax.random as jr

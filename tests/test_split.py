@@ -12,8 +12,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from haskell_path_tracer_tpu.models import world
-from haskell_path_tracer_tpu.models.objects import (
+from haskell_path_tracer.models import world
+from haskell_path_tracer.models.objects import (
     BRDF_DIELECTRIC,
     BRDF_MATTE,
     Camera,
@@ -22,12 +22,12 @@ from haskell_path_tracer_tpu.models.objects import (
     make_planes,
     make_spheres,
 )
-from haskell_path_tracer_tpu.ops import brdf as brdf_ops
-from haskell_path_tracer_tpu.render.integrator import (
+from haskell_path_tracer.ops import brdf as brdf_ops
+from haskell_path_tracer.render.integrator import (
     make_accumulator,
     render_sample_inline,
 )
-from haskell_path_tracer_tpu.render.wavefront import (
+from haskell_path_tracer.render.wavefront import (
     render_sample_wavefront,
     render_sample_wavefront_split,
 )

@@ -13,10 +13,10 @@ import urllib.request
 import numpy as np
 import pytest
 
-from haskell_path_tracer_tpu.app.viewer import serve
-from haskell_path_tracer_tpu.models import world
-from haskell_path_tracer_tpu.render.renderer import Renderer
-from haskell_path_tracer_tpu.utils.config import RenderConfig
+from haskell_path_tracer.app.viewer import serve
+from haskell_path_tracer.models import world
+from haskell_path_tracer.render.renderer import Renderer
+from haskell_path_tracer.utils.config import RenderConfig
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +51,7 @@ def test_viewer_serves_page_and_png(viewer):
     base, state = viewer
     _wait_for_frame(base, state)
     page = _get(base + "/").read()
-    assert b"tpu path tracer" in page
+    assert b"<title>path tracer</title>" in page
     png = _get(base + "/image.png").read()
     assert png[:8] == b"\x89PNG\r\n\x1a\n"
     status = json.loads(_get(base + "/status").read())

@@ -10,12 +10,12 @@ match bit-for-bit.
 import numpy as np
 import jax.numpy as jnp
 
-from haskell_path_tracer_tpu.models import world
-from haskell_path_tracer_tpu.render.integrator import (
+from haskell_path_tracer.models import world
+from haskell_path_tracer.render.integrator import (
     make_accumulator,
     render_sample_inline,
 )
-from haskell_path_tracer_tpu.render.wavefront import render_sample_wavefront
+from haskell_path_tracer.render.wavefront import render_sample_wavefront
 
 
 def _compare(
@@ -76,7 +76,7 @@ def test_wavefront_equals_inline_deep_bounces():
 
 
 def test_wavefront_stats_occupancy_invariants():
-    from haskell_path_tracer_tpu.render.wavefront import (
+    from haskell_path_tracer.render.wavefront import (
         WavefrontStats,
         depth_histogram,
     )
@@ -107,7 +107,7 @@ def test_wavefront_stats_occupancy_invariants():
 
 
 def test_wavefront_batch_stats_sum_over_samples():
-    from haskell_path_tracer_tpu.render.wavefront import (
+    from haskell_path_tracer.render.wavefront import (
         render_batch_wavefront,
     )
 
@@ -127,8 +127,8 @@ def test_wavefront_batch_stats_sum_over_samples():
 def test_wavefront_split_stats_can_grow():
     """With ray splitting the population may exceed the primary count (the
     queue enqueues refraction children), bounded by capacity."""
-    from haskell_path_tracer_tpu.models.objects import BRDF_DIELECTRIC
-    from haskell_path_tracer_tpu.render.wavefront import (
+    from haskell_path_tracer.models.objects import BRDF_DIELECTRIC
+    from haskell_path_tracer.render.wavefront import (
         render_sample_wavefront_split,
     )
 
